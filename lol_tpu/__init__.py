@@ -1,24 +1,22 @@
-"""lol_tpu — a TPU-native ring-LWE lattice-cryptography framework.
+"""lol_tpu — a ring-LWE lattice-cryptography framework in JAX.
 
 Brand-new implementation of the reference library Lol's capability set
 (cyclotomic rings, CRT/NTT tensor transforms, BGV SHE, ring tunneling,
-KH-PRF, RLWE challenges) designed TPU-first: JAX/XLA + Pallas kernels,
+KH-PRF, RLWE challenges): JAX/XLA plus a fused Pallas NTT for the GPU,
 RNS residue channels, jax.sharding meshes.  See SURVEY.md for the layer
 map and DESIGN.md for the architecture.
 """
 
 import os as _os
 
-# Mosaic kernel compiles are expensive (minutes for wide-lane NTT kernels);
-# the persistent compilation cache amortizes them across processes.
-if not _os.environ.get("LOL_TPU_NO_COMPILE_CACHE"):
-    import jax as _jax
+import jax as _jax
 
-    _cache = _os.environ.get(
-        "LOL_TPU_COMPILE_CACHE", _os.path.expanduser("~/.cache/lol_tpu_jax")
-    )
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # older jax without these flags
-        pass
+# Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when set (JAX
+# reads it itself), else a fixed directory inside the checkout — the
+# path is part of the cache key, so it must not move between runs.
+CACHE_DIR = _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)

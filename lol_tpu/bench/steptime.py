@@ -19,10 +19,10 @@ inputs (m=32768, nrns=3, B=1024 by default):
               so sum(parts) > step means XLA overlaps passes; the gap
               is the fusion/overlap dividend)
 
-Components are timed interleaved round-robin (shared-chip drift hits
-every row equally — DESIGN §10).  Usage:
+Components are timed interleaved round-robin, so drift hits every row
+equally.  Usage:
     python -m lol_tpu.bench.steptime [--m 32768] [--rns 3] [--batch 1024]
-Prints one JSON line; run on the real TPU.
+Prints one JSON line; run it on the GPU.
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ class NistRecordBeacon(Beacon):
 
     The reference's `Beacon.hs` fetches records from the NIST beacon over
     HTTP at challenge-suppression time; this sandbox has no network, so
-    the TPU-native analog reads pre-fetched record files from a directory
+    this analog reads pre-fetched record files from a directory
     — one file per epoch, named `<epoch>.xml` (beacon v1) or
     `<epoch>.json` (beacon v2.0) — and extracts the 512-bit output value.
 

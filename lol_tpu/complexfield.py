@@ -5,8 +5,9 @@ Analog of `lol/Crypto/Lol/Types/Complex.hs` + the `CRTEmbed` class
 embed into C where the CRT always exists; used for continuous-error
 paths and sanity checks.
 
-TPU note: no f64 on TPU, and the challenge-verification bounds want
-double precision — so this path is host-side numpy complex128 (the
+Precision note: the challenge-verification bounds want double
+precision, which accelerators run slowly or not at all — so this path is
+host-side numpy complex128 (the
 reference's C++ complex kernels are also CPU).  Same canonical slot
 ordering as the exact transforms (ops/general.py _global_units), so
 complex and mod-q CRT outputs correspond slot-for-slot.

@@ -11,7 +11,7 @@ Slots carry GF(p^d) plaintext arithmetic (gf.py) — together these give
 SIMD slot packing for BGV plaintexts.
 
 Host-side exact computation (Python ints); sizes are plaintext-ring
-sized, never on the TPU hot path.
+sized, never on the device hot path.
 """
 
 from __future__ import annotations

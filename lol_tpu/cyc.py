@@ -6,7 +6,7 @@ Analog of `lol/Crypto/Lol/Cyclotomic/Cyc.hs` + `UCyc.hs`/`CycRep.hs`
 `*` forces CRT on both sides; `+` unifies representations; explicit
 `to_pow/to_dec/to_crt` are the `advise*` hints.  The reference's lazy
 `Scalar`/`Sub` constructors are materialized eagerly here (scalar embed
-is O(n) and subring embeds are cheap stride scatters on TPU; laziness
+is O(n) and subring embeds are cheap stride scatters on device; laziness
 bought little and cost jit-unfriendly branching).
 
 Data: uint32 (..., nrns, n) arrays (leading axes = batch, vmap-able).
@@ -248,9 +248,9 @@ def _mul_e_route(a: Cyc, b: Cyc) -> Cyc:
     that *does* have roots of unity (`lol/Crypto/Lol/CRTrans.hs ::
     CRTEmbed`, target `Complex Double`).
 
-    The TPU-native embedding target is an auxiliary NTT-friendly RNS
+    The embedding target here is an auxiliary NTT-friendly RNS
     chain wide enough to hold the exact integer product of the centered
-    lifts (TPUs have no f64, and exactness is a framework invariant):
+    lifts (exactness is a framework invariant, which floats would break):
     lift -> multiply over aux chain -> lift -> reduce mod the original
     basis.  Coefficient bound: each powerful-basis monomial product
     re-expands with coefficients in {-1,0,1} per prime-power axis, so

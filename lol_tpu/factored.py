@@ -3,7 +3,7 @@
 The reference (`lol/Crypto/Lol/Factored.hs`, SURVEY.md §3.1) encodes the
 cyclotomic index m at the *type* level (kinds Factored/PrimePower/Prime,
 type families FMul/FDiv/FDivides/Coprime, reflection helpers valueFact,
-totientFact, valueHatFact, radicalFact, ppsFact).  The idiomatic TPU design
+totientFact, valueHatFact, radicalFact, ppsFact).  The idiomatic JAX design
 collapses all of that into one frozen, hashable descriptor object validated
 at construction time and used as a static key for jit/kernel caches — you
 still can never combine elements of different m, but the check is a cheap

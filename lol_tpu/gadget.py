@@ -5,11 +5,11 @@ Reference: `lol/Crypto/Lol/Gadget.hs` (SURVEY.md §3.2) — `class Gadget gad`
 with gadget types `TrivGad` and `BaseBGad b`, and pair instances tensoring
 gadgets across RNS components.
 
-TPU design: a `GadgetSpec` picks the gadget; decomposition returns a digit
+Design: a `GadgetSpec` picks the gadget; decomposition returns a digit
 axis that the key-switch inner product contracts with hint ciphertexts.
 Besides the reference's TrivGad/BaseBGad we provide `RnsGad`, the
 CRT/RNS gadget (digit_i = centered residue mod q_i) whose decomposition
-is *free* in RNS form — the idiomatic choice on TPU where big-int lifts
+is *free* in RNS form — the idiomatic choice on device, where big-int lifts
 are expensive; BaseBGad decomposition over multi-prime chains lifts
 through the CRT on the host (oracle path) or per-residue on device for
 single-prime chains.
@@ -152,7 +152,7 @@ def decompose_rns_jnp(basis: RnsBasis, a) -> jnp.ndarray:
     """Device-side RnsGad decomposition of (..., nrns, n) -> (nrns, ..., nrns, n).
 
     digit_i = centered residue [a]_{q_i}, re-expanded into every channel.
-    No big-int lift needed — this is why RnsGad is the TPU-native gadget.
+    No big-int lift needed — this is why RnsGad is the device-native gadget.
     """
     qs = basis.qs
     digits = []

@@ -5,7 +5,7 @@ GF(p^d) as Z_p[x] / (irreducible poly), with Ring/Field ops, trace, and
 Frobenius — used for CRT-slot plaintext arithmetic and PRF outputs.
 
 Host-side exact implementation (int coefficient vectors); slots are tiny
-(d <= 64), so field ops never sit on the TPU hot path.
+(d <= 64), so field ops never sit on the device hot path.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 // Native CPU tensor kernels — the analog of the reference's lol-cpp C++
 // backend (SURVEY.md §3.3: zq.cpp / crt.cpp / l.cpp / g.cpp / tensor.cpp).
 //
-// Role in this framework: a fast host-side oracle and CPU fallback for the
-// Pallas TPU kernels — the "CT backend" to the numpy reference's "RT".
+// Role in this framework: a fast host-side oracle for the device
+// kernels — the "CT backend" to the numpy reference's "RT".
 // Exposed via a C ABI consumed with ctypes (tensor/cpp_backend.py).
 //
 // All arrays are uint32 residues < q < 2^30; arithmetic uses native u64
-// products (the luxury the TPU path has to synthesize from 16-bit limbs).
+// products (the device path synthesizes them from 16-bit limbs).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o liblol_tensor.so tensor.cpp
 
@@ -42,7 +42,7 @@ void zq_sub(const u32* a, const u32* b, u32* out, long n, u32 q) {
 // negacyclic NTT (crt.cpp analog, p = 2 path)
 // Same network as ops/ntt.py: DIT natural->bit-reversed forward, GS
 // bit-reversed->natural inverse; twiddle tables supplied by the caller
-// (psi_rev layout), so results are bit-identical to the Python/TPU paths.
+// (psi_rev layout), so results are bit-identical to the Python/device paths.
 // ---------------------------------------------------------------------------
 
 void ntt_fwd(u32* x, long batch, long n, u32 q, const u32* psi_rev) {

@@ -1,6 +1,6 @@
 """Host-side exact number theory (Python ints).
 
-TPU-native analog of the reference's type-level/value-level arithmetic
+Analog of the reference's type-level/value-level arithmetic
 foundation (Lol's ``Crypto.Lol.Factored`` reflection helpers and the
 root-of-unity search in ``Crypto.Lol.Types.Unsafe.ZqBasic`` — see SURVEY.md
 §3.1/§3.2; reference mount empty, reconstructed spec).

@@ -1,6 +1,6 @@
 """Debug guards for the modular-arithmetic kernels.
 
-SURVEY.md §6 "race detection / sanitizers" row: the TPU analog of memory
+SURVEY.md §6 "race detection / sanitizers" row: the analog of memory
 sanitizers here is an overflow tripwire — every residue must sit in
 [0, q) after reduction; a lazy-reduction bug shows up as a value in
 [q, 2q) (or garbage after u32 wraparound).  `assert_reduced` is that
@@ -42,12 +42,12 @@ def assert_reduced(x, q: int, where: str = ""):
     return x
 
 
-def ntt_cm_checked(x, plan, inverse: bool = False, **kw):
-    """ops/pallas/ntt_kernel.ntt_cm with the post-reduction assert — the
-    'debug kernel variant' for the fused NTT (checks both the input and
-    the output channel against the plan's modulus)."""
-    from .pallas import ntt_kernel as pk
+def ntt_cm_checked(x, plan, inverse: bool = False):
+    """ops.select.ntt_cm (the platform's NTT) with the post-reduction
+    assert — the 'debug kernel variant' for the fused NTT (checks both
+    the input and the output channel against the plan's modulus)."""
+    from . import select
 
     assert_reduced(x, plan.q, where=f"ntt_cm input n={plan.n}")
-    y = pk.ntt_cm(x, plan, inverse=inverse, **kw)
+    y = select.ntt_cm(x, plan, inverse=inverse)
     return assert_reduced(y, plan.q, where=f"ntt_cm output n={plan.n}")

@@ -6,13 +6,13 @@ m = prod p_i^{e_i}, R_m = (x)_i R_{p_i^{e_i}} and every linear op factors
 as a tensor product of per-prime-power transforms applied along the axes
 of the coefficient tensor of shape phi_shape = (phi(p_i^{e_i}))_i.
 
-Per-axis transform choices (TPU-first):
-- p = 2 axis: the fused negacyclic NTT network (ops/ntt.py + Pallas) —
+Per-axis transform choices:
+- p = 2 axis: the negacyclic NTT network (ops/ntt.py, ops.select) —
   the CRT matrix of R_{2^a} *is* the negacyclic NTT with unit ordering
   u(i) = 2*brv(i)+1 mod 2^a.
 - odd p axes (small in practice: 3,5,7,...): dense phi x phi
-  matrix-vector products mod q with exact tree-reductions — these are
-  MXU-shaped matmuls; correctness first via VPU modmul + modsum tree.
+  matrix-vector products mod q with exact tree-reductions: an int8-limb
+  matmul for larger axes, an elementwise modmul + modsum tree below.
 
 CRT slot indexing: slot multi-index (u_1, ..., u_k), axis i enumerating
 the units of Z_{p_i^{e_i}} in a *canonical order* (2-axis: NTT order;
@@ -91,20 +91,20 @@ def _modsum_tree(x, q, axis=-1):
     return x[..., 0]
 
 
-MXU_MIN_AXIS = 16  # below this the VPU broadcast path wins (tiny matrices)
+INT8_MIN_AXIS = 16  # below this the broadcast path wins (tiny matrices)
 
 
-def matvec_mod_jnp(M, x, q, use_mxu: bool | None = None):
+def matvec_mod_jnp(M, x, q, use_int8: bool | None = None):
     """(a,b) @ (..., b) -> (..., a) mod q, exact.
 
-    Two bit-identical paths: a VPU broadcast-multiply + deterministic
-    mod-sum tree, and an MXU int8-limb matmul (`matvec_mod_mxu`) for
+    Two bit-identical paths: a broadcast-multiply + deterministic
+    mod-sum tree, and an int8-limb matmul (`matvec_mod_int8`) for
     axes large enough to amortize the relayout.  Both are exact integer
     arithmetic, so the dispatch never affects results."""
-    if use_mxu is None:
-        use_mxu = min(M.shape) >= MXU_MIN_AXIS
-    if use_mxu:
-        return matvec_mod_mxu(M, x, q)
+    if use_int8 is None:
+        use_int8 = min(M.shape) >= INT8_MIN_AXIS
+    if use_int8:
+        return matvec_mod_int8(M, x, q)
     prod = zq.mul_mod(M, x[..., None, :], q)  # (..., a, b)
     return _modsum_tree(prod, q, axis=-1)
 
@@ -113,16 +113,16 @@ def _limbs_needed(q: int) -> int:
     return ((q - 1).bit_length() + 7) // 8
 
 
-def matvec_mod_mxu(M, x, q):
+def matvec_mod_int8(M, x, q):
     """Exact (a,b) @ (..., b) -> (..., a) mod q via int8 limb matmuls.
 
-    TPU-native realization of the reference's dense odd-prime-axis DFT
-    (`lol-cpp .../crt.cpp` general-p path, SURVEY §3.3) on the MXU: split
+    The reference's dense odd-prime-axis DFT (`lol-cpp .../crt.cpp`
+    general-p path, SURVEY §3.3) as integer matmuls: split
     both operands into 8-bit limbs, center to int8, take all limb-pair
-    matmuls with int32 accumulation (native MXU int8 ops), undo the
+    matmuls with int32 accumulation (exact integer dot products), undo the
     centering with precomputed row/column sums, then fold the 2^{8k}
     limb weights back in mod q.  Every step is exact integer arithmetic,
-    so the result is bit-identical to the VPU path (asserted by the
+    so the result is bit-identical to the broadcast path (asserted by the
     cross-path test in tests/test_general.py).
 
     Range proof: |centered limb| <= 128, so each dot entry is at most
@@ -131,7 +131,7 @@ def matvec_mod_mxu(M, x, q):
     4 such terms is < 2^31 for b <= 4096 (odd axes are far smaller)."""
     a, b = M.shape
     if b > 4096:
-        raise ValueError("matvec_mod_mxu: axis too large for int32 accum")
+        raise ValueError("matvec_mod_int8: axis too large for int32 accum")
     nl = _limbs_needed(q)  # residues < q, so both operands fit nl limbs
     Mu = jnp.asarray(M, dtype=jnp.uint32)  # jnp throughout: works for plan
     M_limbs = [((Mu >> (8 * i)) & 0xFF).astype(jnp.int32) - 128 for i in range(nl)]
@@ -293,22 +293,22 @@ def crt_inv(plan: GeneralPlan, x):
 # --- coefficient-major (n, B) forms for the batched serving pipeline -------
 #
 # she_batched keeps ciphertext components coefficient-major ((n, B), batch
-# along lanes).  For general m the flat coefficient axis is the row-major
+# contiguous).  For general m the flat coefficient axis is the row-major
 # flattening of phi_shape (primes ascending), so the 2-power axis — where
 # the work is — is axis 0 and (n2, rest*B) is a FREE reshape: it rides the
-# same fused Pallas negacyclic NTT as the 2-power pipeline (including the
+# same negacyclic NTT as the 2-power pipeline (ops.select, including the
 # pre_digit_q RNS-digit prologue), while the small odd dense axes ride
-# matvec_mod_jnp (MXU dispatch at phi >= 16).  (VERDICT r2 #4.)
+# matvec_mod_jnp.  (VERDICT r2 #4.)
 
 
 def crt_cm(plan: GeneralPlan, x, inverse: bool = False,
-           use_pallas: bool = False, pre_digit_q: int | None = None):
+           pre_digit_q: int | None = None):
     """(n, B) coefficient-major CRT / CRT^-1 for general m.
 
     pre_digit_q: fuse the RNS-gadget digit re-expansion (elementwise, so
-    it runs before ANY axis transform) — inside the 2-axis Pallas kernel
-    when one runs, as an explicit prologue otherwise.  Forward only."""
-    from .pallas import ntt_kernel as pk
+    it runs before ANY axis transform) — inside the 2-axis transform
+    when there is one, as an explicit prologue otherwise.  Forward only."""
+    from . import select
 
     if pre_digit_q is not None and inverse:
         raise ValueError("crt_cm: pre_digit_q is a forward-only prologue")
@@ -316,24 +316,12 @@ def crt_cm(plan: GeneralPlan, x, inverse: bool = False,
     q = plan.q
     shape = plan.phi_shape
     axes = plan.axes
-    pre_handled = pre_digit_q is None
     if axes and axes[0].ntt2 is not None:
         n2 = shape[0]
-        rest = (n // n2) * B
-        x2 = x.reshape(n2, rest)
-        if use_pallas and rest % 128 == 0:
-            x2 = pk.ntt_cm(x2, axes[0].ntt2, inverse=inverse,
-                           pre_digit_q=pre_digit_q)
-            pre_handled = True
-        else:
-            if not pre_handled:
-                x2 = pk._redigit(x2, pre_digit_q, q)
-                pre_handled = True
-            fn = ntt.ntt_inverse_stages if inverse else ntt.ntt_forward_stages
-            x2 = jnp.moveaxis(fn(jnp.moveaxis(x2, 0, -1), axes[0].ntt2), -1, 0)
-        x = x2.reshape(n, B)
-    if not pre_handled:
-        x = pk._redigit(x, pre_digit_q, q)
+        x2 = x.reshape(n2, (n // n2) * B)
+        x = select.ntt_cm(x2, axes[0].ntt2, inverse, pre_digit_q).reshape(n, B)
+    elif pre_digit_q is not None:
+        x = ntt.redigit(x, pre_digit_q, q)
     xs = x.reshape(*shape, B)
     for i, ax in enumerate(axes):
         if ax.ntt2 is not None or ax.phi == 1:

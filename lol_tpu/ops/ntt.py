@@ -1,11 +1,11 @@
 """Negacyclic NTT for 2-power cyclotomics — the hot transform.
 
-TPU-native replacement for the reference's C++ CRT kernels in the p=2
+Replacement for the reference's C++ CRT kernels in the p=2
 specialization (`lol-cpp .../crt.cpp`, SURVEY.md §3.3): for m = 2^(k+1),
 R_q = Z_q[x]/(x^n + 1) with n = 2^k, and the CRT basis transform is the
 negacyclic (psi-twisted) NTT.
 
-Design notes (TPU-first, not a port):
+Design notes:
 
 - No bit-reversal permutations ever: the forward transform is
   decimation-in-time (natural order in, bit-reversed out) and the inverse
@@ -14,9 +14,11 @@ Design notes (TPU-first, not a port):
   multiplication doesn't care; index tables that do (twace/embed in CRT
   basis) use `crt_output_exponents` below.
 - Each butterfly stage is a fully-vectorized elementwise op over the whole
-  (batch, n) array — a (m, 2, t) reshape + one Shoup modmul + modadd/sub.
-  XLA runs these on the VPU; the Pallas kernel (ops/pallas/ntt_kernel.py)
-  runs the same stage loop inside VMEM without HBM round-trips.
+  array — a (m, 2, t) reshape + one Shoup modmul + modadd/sub.  The
+  network transforms axis 0 (`ntt_forward_cm`: the batched pipeline's
+  coefficient-major (n, B) layout, no transpose); the row-major (..., n)
+  form (`ntt_forward_stages`) transposes around it.  The fused GPU
+  kernel (ops/pallas/ntt_triton.py) runs the same network.
 - Twiddles are precomputed with Shoup companions at plan-build time
   (exact host integers), one plan per (n, q), cached.
 
@@ -107,52 +109,89 @@ def crt_output_exponents(n: int) -> np.ndarray:
     return 2 * _bit_reverse_perm(n) + 1
 
 
+def block_twiddles(plan: NTTPlan, inverse: bool, S: int, tS: int) -> np.ndarray:
+    """(n // tS, tS) per-block tables for the stages after the first S.
+
+    After S stages the DIT network stays within contiguous tS-row
+    blocks.  Block b's table has the standard DIT layout: rows
+    [2^sp, 2^(sp+1)) hold the local-stage-sp group twiddles, which for
+    global stage s = S+sp and block b are src[2^s + b*2^sp + i']."""
+    k = plan.n.bit_length() - 1
+    src = plan.ipsi_rev if inverse else plan.psi_rev
+    nblk = plan.n // tS
+    T = np.zeros((nblk, tS), dtype=np.uint32)
+    for sp in range(k - S):
+        mp = 1 << sp
+        base = 1 << (S + sp)
+        for b in range(nblk):
+            T[b, mp : 2 * mp] = src[base + b * mp : base + (b + 1) * mp]
+    return T
+
+
+def redigit(x, q_src: int, q: int):
+    """RNS-gadget digit re-expansion: x holds residues in [0, q_src);
+    emit the centered representative's residue mod q (bit-identical to
+    she_batched.decompose_cm's per-channel arithmetic)."""
+    if q_src == q:
+        return x
+    r = zq.reduce_mod(x, q) if q_src > q else x
+    hi = x >= jnp.uint32((q_src + 1) // 2)
+    return jnp.where(hi, zq.sub_mod(r, jnp.uint32(q_src % q), q), r)
+
+
 # ---------------------------------------------------------------------------
-# staged jnp implementation (shared by XLA path and as Pallas reference)
+# staged jnp implementation (the XLA path and the kernel's reference)
 # ---------------------------------------------------------------------------
+
+
+def ntt_forward_cm(x, plan: NTTPlan):
+    """Forward negacyclic NTT over axis 0 of a coefficient-major (n, ...)
+    array (natural in, brv out)."""
+    n, q = plan.n, plan.q
+    rest = x.shape[1:]
+    pad = (1,) * len(rest)
+    for s in range(n.bit_length() - 1):
+        m = 1 << s
+        t = n >> (s + 1)
+        w = jnp.asarray(plan.psi_rev[m : 2 * m]).reshape(m, 1, *pad)
+        w_sh = jnp.asarray(plan.psi_rev_sh[m : 2 * m]).reshape(m, 1, *pad)
+        x = x.reshape(m, 2, t, *rest)
+        u = x[:, 0]
+        v = zq.mul_mod_shoup(x[:, 1], w, w_sh, q)
+        x = jnp.stack([zq.add_mod(u, v, q), zq.sub_mod(u, v, q)], axis=1)
+        x = x.reshape(n, *rest)
+    return x
+
+
+def ntt_inverse_cm(x, plan: NTTPlan):
+    """Inverse negacyclic NTT over axis 0 of a coefficient-major array
+    (brv in, natural out)."""
+    n, q = plan.n, plan.q
+    rest = x.shape[1:]
+    pad = (1,) * len(rest)
+    for s in reversed(range(n.bit_length() - 1)):
+        h = 1 << s
+        t = n >> (s + 1)
+        w = jnp.asarray(plan.ipsi_rev[h : 2 * h]).reshape(h, 1, *pad)
+        w_sh = jnp.asarray(plan.ipsi_rev_sh[h : 2 * h]).reshape(h, 1, *pad)
+        x = x.reshape(h, 2, t, *rest)
+        u = x[:, 0]
+        v = x[:, 1]
+        x = jnp.stack(
+            [zq.add_mod(u, v, q), zq.mul_mod_shoup(zq.sub_mod(u, v, q), w, w_sh, q)],
+            axis=1,
+        ).reshape(n, *rest)
+    return zq.mul_mod_shoup(x, jnp.uint32(plan.n_inv), jnp.uint32(plan.n_inv_sh), q)
 
 
 def ntt_forward_stages(x, plan: NTTPlan):
     """Forward negacyclic NTT over the last axis (natural in, brv out)."""
-    n, q = plan.n, plan.q
-    if n == 1:
-        return x
-    k = n.bit_length() - 1
-    batch = x.shape[:-1]
-    for s in range(k):
-        m = 1 << s
-        t = n >> (s + 1)
-        w = jnp.asarray(plan.psi_rev[m : 2 * m])[:, None]
-        w_sh = jnp.asarray(plan.psi_rev_sh[m : 2 * m])[:, None]
-        x = x.reshape(*batch, m, 2, t)
-        u = x[..., 0, :]
-        v = zq.mul_mod_shoup(x[..., 1, :], w, w_sh, q)
-        x = jnp.stack(
-            [zq.add_mod(u, v, q), zq.sub_mod(u, v, q)], axis=-2
-        ).reshape(*batch, n)
-    return x
+    return jnp.moveaxis(ntt_forward_cm(jnp.moveaxis(x, -1, 0), plan), 0, -1)
 
 
 def ntt_inverse_stages(x, plan: NTTPlan):
     """Inverse negacyclic NTT over the last axis (brv in, natural out)."""
-    n, q = plan.n, plan.q
-    if n == 1:
-        return x
-    k = n.bit_length() - 1
-    batch = x.shape[:-1]
-    for s in reversed(range(k)):
-        h = 1 << s
-        t = n >> (s + 1)
-        w = jnp.asarray(plan.ipsi_rev[h : 2 * h])[:, None]
-        w_sh = jnp.asarray(plan.ipsi_rev_sh[h : 2 * h])[:, None]
-        x = x.reshape(*batch, h, 2, t)
-        u = x[..., 0, :]
-        v = x[..., 1, :]
-        x = jnp.stack(
-            [zq.add_mod(u, v, q), zq.mul_mod_shoup(zq.sub_mod(u, v, q), w, w_sh, q)],
-            axis=-2,
-        ).reshape(*batch, n)
-    return zq.mul_mod_shoup(x, jnp.uint32(plan.n_inv), jnp.uint32(plan.n_inv_sh), q)
+    return jnp.moveaxis(ntt_inverse_cm(jnp.moveaxis(x, -1, 0), plan), 0, -1)
 
 
 @lru_cache(maxsize=256)

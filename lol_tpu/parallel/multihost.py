@@ -8,10 +8,10 @@ Not exercisable in a single-host sandbox (no second host to talk to);
 the sharded pipelines themselves are tested on the 8-virtual-device CPU
 mesh (tests/test_sharding.py), which compiles the identical collectives.
 
-Typical pod-slice usage (same script on every host):
+Typical usage (same script on every host, one process per host):
 
     from lol_tpu.parallel import multihost
-    multihost.initialize()              # TPU pods: env auto-detection
+    multihost.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = multihost.global_mesh({"data": -1, "rns": 4})
 """
 
@@ -22,30 +22,18 @@ import numpy as np
 import jax
 
 
-def _is_initialized() -> bool:
-    """True iff the jax.distributed client is already up (API moved
-    across jax versions; fall back to the private global state)."""
-    fn = getattr(jax.distributed, "is_initialized", None)
-    if fn is not None:
-        return bool(fn())
-    from jax._src import distributed as _dist
-
-    return getattr(_dist.global_state, "client", None) is not None
-
-
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Bring up the jax.distributed runtime (idempotent).
 
-    On TPU pod slices all three arguments are auto-detected from the
-    environment; pass them explicitly for manual/CPU multi-process
-    bring-up (coordinator 'host:port', world size, rank).
+    Pass all three arguments (coordinator 'host:port', world size,
+    rank) unless the cluster environment lets JAX detect them.
 
     Must run before anything initializes the XLA backend (jax.devices()
     etc.) — the idempotence check deliberately avoids jax.process_count,
     which would itself initialize the backend."""
-    if _is_initialized():
+    if jax.distributed.is_initialized():
         return
     kwargs = {}
     if coordinator_address is not None:
@@ -62,9 +50,9 @@ def global_mesh(shape: dict[str, int]) -> "jax.sharding.Mesh":
 
     shape maps axis name -> size; exactly one axis may be -1 to absorb
     the remaining device count.  Axis order follows dict order with the
-    first axis outermost — put the DCN-crossing axis ('data' for the
+    first axis outermost — put the host-crossing axis ('data' for the
     batch-parallel BGV pipeline) FIRST so jax's device order keeps each
-    host's devices contiguous in the inner (ICI) axes."""
+    host's devices contiguous in the inner axes."""
     from jax.sharding import Mesh
 
     devices = np.array(jax.devices())

@@ -12,13 +12,13 @@ innovates per BASELINE.json.  Parallelism axes:
   digit axis *locally* and only the (tiny) final accumulations cross
   channels (psum over `rns` when the digit axis is sharded).
 - `ring` (large n): butterfly stages whose stride crosses the shard
-  boundary become all-to-alls — see ops/pallas ring kernels (planned);
-  below, `ntt_ring_sharded` implements the stride-split two-call NTT
-  with jax collectives: stage set A runs on the strided view (local
-  after an all-to-all regroup), stage set B is block-local.
+  boundary become all-to-alls — `ntt_ring_sharded` implements the
+  stride-split two-phase NTT with jax collectives: stage set A runs on
+  the strided view (local after an all-to-all regroup), stage set B is
+  block-local.
 
-Everything uses jax.sharding + shard_map with XLA collectives riding
-ICI; multi-host meshes use the same code (mesh spans hosts).
+Everything uses jax.sharding with XLA collectives (NCCL on GPUs);
+multi-host meshes use the same code (mesh spans hosts).
 """
 
 from __future__ import annotations
@@ -83,13 +83,12 @@ def batched_ntt_sharded(mesh: Mesh, x, plans: list[ntt.NTTPlan],
 def ntt_ring_sharded(mesh: Mesh, x, plan: ntt.NTTPlan, axis: str = "ring"):
     """Negacyclic NTT with the coefficient axis sharded over `axis`.
 
-    Uses the same structural split as the Pallas kernel (ops/pallas):
-    for D = axis size, view (D, n/D): the first log2(D) stages only
+    For D = axis size, view (D, n/D): the first log2(D) stages only
     combine equal residues rho mod (n/D) — after resharding the view so
     each device holds one *stride class*, they are local; the remaining
     stages are local to contiguous blocks.  The single resharding between
     the two phases is the classic FFT all-to-all, expressed as a sharded
-    transpose (XLA lowers it to all-to-all over ICI).
+    transpose (XLA lowers it to an all-to-all).
 
     x: (..., n) with the last axis sharded over `axis`.
     """
@@ -136,37 +135,27 @@ def ntt_ring_sharded(mesh: Mesh, x, plan: ntt.NTTPlan, axis: str = "ring"):
         xb = jax.lax.with_sharding_constraint(
             xa, NamedSharding(mesh, P(*([None] * len(batch)), axis, None))
         )
-        # per-block tables: block b of tS rows, stages S..k-1
-        from ..ops.pallas.ntt_kernel import _block_twiddles
-
-        TB = _block_twiddles(plan, False, S=S, tS=tS)
-        TBs = np.array(
-            [[zq.shoup(int(wv), q) for wv in row] for row in TB], dtype=np.uint32
+        # per-block tables: block b of tS rows, stages S..k-1; every block
+        # runs its own table on the device that holds it
+        TB = ntt.block_twiddles(plan, False, S=S, tS=tS)
+        TBs = zq.shoup_np(TB, q)
+        y = xb
+        for sp in range(n.bit_length() - 1 - S):
+            mp = 1 << sp
+            t = tS >> (sp + 1)
+            w = jnp.asarray(TB[:, mp : 2 * mp, None])
+            wsh = jnp.asarray(TBs[:, mp : 2 * mp, None])
+            ys = y.reshape(*batch, D, mp, 2, t)
+            u = ys[..., 0, :]
+            v = zq.mul_mod_shoup(ys[..., 1, :], w, wsh, q)
+            y = jnp.stack(
+                [zq.add_mod(u, v, q), zq.sub_mod(u, v, q)], axis=-2
+            ).reshape(*batch, D, tS)
+        # the output keeps the input's layout: coefficients over `axis`
+        out = y.reshape(*batch, n)
+        return jax.lax.with_sharding_constraint(
+            out, NamedSharding(mesh, P(*([None] * len(batch)), axis))
         )
-        k = n.bit_length() - 1
-        outs = xb
-        # apply local network per block via vmap over the block axis
-        def block_net(xloc, tab, tab_sh):
-            y = xloc
-            for sp in range(k - S):
-                mp = 1 << sp
-                t = tS >> (sp + 1)
-                w = tab[mp : 2 * mp][:, None]
-                wsh = tab_sh[mp : 2 * mp][:, None]
-                ys = y.reshape(*y.shape[:-1], mp, 2, t)
-                u = ys[..., 0, :]
-                v = zq.mul_mod_shoup(ys[..., 1, :], w, wsh, q)
-                y = jnp.stack(
-                    [zq.add_mod(u, v, q), zq.sub_mod(u, v, q)], axis=-2
-                ).reshape(*y.shape[:-1], tS)
-            return y
-
-        blocks = [
-            block_net(outs[..., b, :], jnp.asarray(TB[b]), jnp.asarray(TBs[b]))
-            for b in range(D)
-        ]
-        out = jnp.stack(blocks, axis=-2).reshape(*batch, n)
-        return out
 
     return run(x)
 

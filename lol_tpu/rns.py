@@ -3,7 +3,7 @@
 The reference represents a composite modulus q = q1*q2*... as a *tuple* of
 `ZqBasic` components with pair instances for Ring/Reduce/Lift/Rescale
 (SURVEY.md §3.2, "RNS via tuples"); dropping a tuple component is its exact
-modulus switch.  The TPU design makes the residue axis an explicit leading
+modulus switch.  This design makes the residue axis an explicit leading
 array axis: a mod-q ring element is a u32 array of shape (..., nrns, n),
 one residue channel per 30-bit prime, and every channel's kernels are
 specialized to that prime (the analog of the per-type-level-q instances).

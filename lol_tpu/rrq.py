@@ -4,8 +4,8 @@ Analog of `lol/Crypto/Lol/Types/Unsafe/RRq.hs` (SURVEY.md §3.2):
 Additive-group arithmetic, Reduce (R -> R/qZ), Lift (centered
 representative), Rescale (R/qZ -> R/q'Z), and rounding to Z_q.
 
-TPU representation: float32 arrays holding centered representatives in
-[-q/2, q/2).  (The reference uses Double; TPU has no f64 — challenge
+Device representation: float32 arrays holding centered representatives in
+[-q/2, q/2).  (The reference uses Double; on device we stay in f32 — challenge
 verification against tight bounds happens on the host in f64/exact.)
 """
 

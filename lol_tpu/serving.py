@@ -36,8 +36,7 @@ def _mk(bb: BatchedBGV, p_cur: int, L: int) -> BatchedBGV:
     """The pipeline over chain prefix qs[:L] at plaintext modulus p_cur."""
     base = bb.params
     return BatchedBGV(
-        type(base)(m=base.m, p=p_cur, qs=base.qs[:L], var=base.var),
-        use_pallas=bb.use_pallas,
+        type(base)(m=base.m, p=p_cur, qs=base.qs[:L], var=base.var)
     )
 
 
@@ -199,8 +198,7 @@ def batched_homom_prf_component(fam, hints, bb: BatchedBGV, c0, c1,
             c0, c1 = cur.build_to_lsd()(c0, c1)
             f = cur.to_lsd_f(f)
         cur = BatchedBGV(
-            type(base)(m=base.m, p=hints.p_final, qs=base.qs, var=base.var),
-            use_pallas=cur.use_pallas,
+            type(base)(m=base.m, p=hints.p_final, qs=base.qs, var=base.var)
         )
         f = f % hints.p_final
         if msd:

@@ -16,7 +16,7 @@ multiply by f^{-1}.  For 2-power m the reference's m-hat and g factors
 are 1, so they don't appear; the fields are kept for general m.
 
 All ciphertext component arithmetic is Cyc arithmetic: NTT-domain
-Hadamards on the TPU hot path.
+Hadamards on the device hot path.
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 """ctypes bindings for the native C++ tensor kernels (lol-cpp analog).
 
 Builds lol_tpu/native/tensor.cpp into a shared library on first use
-(g++, cached next to the source) and exposes the Tensor hot ops over
-numpy arrays.  Bit-identical to the numpy/jnp/Pallas paths — same
-networks, same twiddle tables.
+(g++, into the checkout's gitignored build/ directory) and exposes the
+Tensor hot ops over numpy arrays.  Bit-identical to the numpy/jnp/Pallas
+paths — same networks, same twiddle tables.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from functools import lru_cache
 from pathlib import Path
@@ -18,7 +19,7 @@ import numpy as np
 from ..ops.ntt import NTTPlan
 
 _SRC = Path(__file__).parent.parent / "native" / "tensor.cpp"
-_LIB = _SRC.parent / "liblol_tensor.so"
+_LIB = _SRC.parents[2] / "build" / "liblol_tensor.so"
 
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _f64p = ctypes.POINTER(ctypes.c_double)
@@ -28,11 +29,14 @@ _i64p = ctypes.POINTER(ctypes.c_longlong)
 @lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     if (not _LIB.exists()) or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
+        _LIB.parent.mkdir(exist_ok=True)
+        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}")
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", str(_LIB), str(_SRC)],
+             "-o", str(tmp), str(_SRC)],
             check=True,
         )
+        os.replace(tmp, _LIB)  # atomic: concurrent builders never see half a file
     lib = ctypes.CDLL(str(_LIB))
     for name, args in {
         "zq_mul": [_u32p, _u32p, _u32p, ctypes.c_long, ctypes.c_uint32],

@@ -1,16 +1,16 @@
-"""L1 — Z_q arithmetic over uint32 arrays (TPU-native scalar layer).
+"""L1 — Z_q arithmetic over uint32 arrays (the device scalar layer).
 
 Role of the reference's `ZqBasic q Int64` (`lol/Crypto/Lol/Types/Unsafe/
 ZqBasic.hs`) plus the C++ scalar kernels (`lol-cpp .../zq.cpp` — SURVEY.md
 §3.2/§3.3).  Where the reference does 64-bit modmul with 128-bit
-intermediates on the CPU, the TPU has no native 64-bit integer path, so the
-design is:
+intermediates on the CPU, every device path here stays in 32-bit lanes,
+so the design is:
 
 - moduli are primes q with 2 <= q < 2**30 held as *static* Python ints
   (folded into compiled kernels; one kernel specialization per modulus —
   the analog of the reference's per-type-level-q instantiation);
 - values live in uint32 arrays, always fully reduced to [0, q);
-- 64-bit products are synthesized from the native 32x32->lo32 VPU multiply
+- 64-bit products are synthesized from the native 32x32->lo32 multiply
   plus a 16-bit-limb mulhi (4 multiplies, Hacker's-Delight style);
 - variable*variable modmul uses Barrett reduction (generalized to any
   bit-length k <= 30), constant*variable uses Shoup's trick (precomputed
@@ -44,8 +44,9 @@ MAX_MODULUS_BITS = 30  # q < 2^30: a+b and 3q fit in u32; Barrett mu fits u32
 def mulhi32(a, b):
     """High 32 bits of the 64-bit product of two uint32 arrays.
 
-    TPU has a native lo32 multiply only; the high word is assembled from
-    four 16x16 partial products (each fits u32, carries handled exactly).
+    The high word is assembled from four 16x16 partial products (each
+    fits u32, carries handled exactly) using only the lo32 multiply that
+    every backend has.
     """
     a0 = a & 0xFFFF
     a1 = a >> 16
@@ -111,17 +112,19 @@ def mul_mod(a, b, q: int, mu: int | None = None):
     return r
 
 
-def reduce_mod(x, q: int):
+def reduce_mod(x, q, k: int | None = None, mu=None):
     """x mod q for u32 x with x < 2^(2k), k = bitlength(q) (Barrett).
 
     Used to re-reduce a residue from one RNS channel into another's
     modulus; valid whenever x < q'^2-ish, in particular for any x < 2^30
-    against moduli q >= 2^15."""
-    k = q.bit_length()
+    against moduli q >= 2^15.  q may be a traced u32 scalar if its bit
+    length k (static) and barrett_mu(q) are passed."""
+    if k is None:
+        k, mu = q.bit_length(), barrett_mu(q)
     if 2 * k < 30:
         # tiny modulus: fall back to exact integer remainder (rare path)
         return jnp.mod(x, jnp.uint32(q)).astype(jnp.uint32)
-    mu = jnp.uint32(barrett_mu(q))
+    mu = jnp.uint32(mu)
     qq = jnp.uint32(q)
     t = x >> (k - 1)
     qhi, qlo = mul32_wide(t, mu)

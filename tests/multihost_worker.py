@@ -81,7 +81,7 @@ def main(pid: int, nproc: int, port: int) -> None:
     ks, kh, k1, k2 = jax.random.split(key, 4)
     sk = she.gen_sk(params, ks)
     hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), kh)
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     rng2 = np.random.default_rng(1)
     Bs = 2 * mesh2.shape["data"]
     cts_a = [she.encrypt(sk, she.pt_random(params, rng2), k)

@@ -37,13 +37,13 @@ def test_ntt_cm_checked(rng):
     x = jnp.asarray(
         rng.integers(0, Q, (64, 128), dtype=np.uint64).astype(np.uint32)
     )
-    y = dbg.ntt_cm_checked(x, plan, interpret=True)
+    y = dbg.ntt_cm_checked(x, plan)
     np.testing.assert_array_equal(
         np.asarray(y).T, ntt.np_ntt_forward(np.asarray(x).T, plan)
     )
     bad = x.at[0, 0].set(np.uint32(Q))
     with pytest.raises(Exception):
-        jax.block_until_ready(dbg.ntt_cm_checked(bad, plan, interpret=True))
+        jax.block_until_ready(dbg.ntt_cm_checked(bad, plan))
 
 
 def test_global_mesh_shapes():

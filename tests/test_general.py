@@ -10,7 +10,7 @@ from lol_tpu import numtheory as nt, zq
 from lol_tpu.factored import fact
 from lol_tpu.ops import general as gen
 
-# 51 = 3*17: phi-16 axis hits the MXU auto path; 42 = 2*3*7 (three prime
+# 51 = 3*17: phi-16 axis hits the int8-limb auto path; 42 = 2*3*7 (three prime
 # factors), 49 = 7^2 (odd prime square), 89 (large prime): SURVEY §5's
 # named grid shapes (F42/F89-style indices)
 MS = [3, 5, 8, 9, 12, 16, 21, 24, 36, 42, 45, 49, 51, 60, 89]
@@ -245,15 +245,15 @@ def test_dec_mixing_factors_reproduce_dense(rng):
 
 
 def test_matvec_mxu_bit_exact_vs_vpu():
-    """The MXU int8-limb matmul path == VPU path == bigint oracle, over
+    """The int8-limb matmul path == broadcast path == bigint oracle, over
     moduli spanning 1..4 limbs and shapes around the dispatch threshold."""
     rng = np.random.default_rng(7)
     for q in (251, 65521, 12289, 1032193, nt.ntt_primes(4096, 30, 1)[0]):
         for a, b in ((2, 2), (16, 16), (7, 130), (130, 7), (96, 96)):
             M = rng.integers(0, q, (a, b), dtype=np.uint64).astype(np.uint32)
             x = rng.integers(0, q, (3, 4, b), dtype=np.uint64).astype(np.uint32)
-            vpu = gen.matvec_mod_jnp(jnp.asarray(M), jnp.asarray(x), q, use_mxu=False)
-            mxu = gen.matvec_mod_mxu(jnp.asarray(M), jnp.asarray(x), q)
+            vpu = gen.matvec_mod_jnp(jnp.asarray(M), jnp.asarray(x), q, use_int8=False)
+            mxu = gen.matvec_mod_int8(jnp.asarray(M), jnp.asarray(x), q)
             ref = M.astype(object) @ x.reshape(-1, b).T.astype(object) % q
             np.testing.assert_array_equal(np.asarray(vpu), np.asarray(mxu))
             np.testing.assert_array_equal(
@@ -262,7 +262,7 @@ def test_matvec_mxu_bit_exact_vs_vpu():
 
 
 def test_general_crt_agrees_with_mxu_forced_axis():
-    """Applying the MXU matvec on an odd axis == the auto-dispatched crt
+    """Applying the int8-limb matvec on an odd axis == the auto-dispatched crt
     leg for that axis (path choice never affects results)."""
     rng = np.random.default_rng(8)
     m = 45  # odd axes 9 and 5: phi 6 and 4, both below the auto threshold
@@ -274,11 +274,11 @@ def test_general_crt_agrees_with_mxu_forced_axis():
             continue
         vpu = gen._apply_axis(
             plan, x, i,
-            lambda v, a=ax: gen.matvec_mod_jnp(jnp.asarray(a.M), v, q, use_mxu=False),
+            lambda v, a=ax: gen.matvec_mod_jnp(jnp.asarray(a.M), v, q, use_int8=False),
         )
         mxu = gen._apply_axis(
             plan, x, i,
-            lambda v, a=ax: gen.matvec_mod_mxu(jnp.asarray(a.M), v, q),
+            lambda v, a=ax: gen.matvec_mod_int8(jnp.asarray(a.M), v, q),
         )
         np.testing.assert_array_equal(np.asarray(vpu), np.asarray(mxu))
 
@@ -312,9 +312,9 @@ def test_crt_cm_matches_row_major_and_numpy(m):
         np.asarray(gen.l_cm(plan, jnp.asarray(gl), inverse=True)), x
     )
     # fused digit prologue == explicit redigit then transform
-    from lol_tpu.ops.pallas.ntt_kernel import _redigit
+    from lol_tpu.ops.ntt import redigit
 
     xs = rng.integers(0, q2, (n, 8), dtype=np.uint64).astype(np.uint32)
     a = np.asarray(gen.crt_cm(plan, jnp.asarray(xs), pre_digit_q=q2))
-    b = np.asarray(gen.crt_cm(plan, _redigit(jnp.asarray(xs), q2, q)))
+    b = np.asarray(gen.crt_cm(plan, redigit(jnp.asarray(xs), q2, q)))
     np.testing.assert_array_equal(a, b)

@@ -66,92 +66,6 @@ def test_hadamard_sharded(rng):
         )
 
 
-def test_remote_ntt_pallas_a2a_matches_oracle(rng):
-    """Pallas remote-DMA all-to-all NTT (interpret mode) vs numpy oracle."""
-    from lol_tpu.ops.pallas import remote_ntt as rn
-
-    mesh = sh.make_mesh({"ring": 4})
-    q = QS[0]
-    plan = ntt.ntt_plan(N, q)  # N = 256, D = 4: D^2 | N
-    x = rng.integers(0, q, (2, N), dtype=np.uint64).astype(np.uint32)
-    xj = jax.device_put(
-        jnp.asarray(x),
-        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, "ring")),
-    )
-    got = rn.ntt_ring_sharded_pallas(mesh, xj, plan, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), ntt.np_ntt_forward(x, plan))
-
-
-def test_remote_ntt_pallas_8dev(rng):
-    from lol_tpu.ops.pallas import remote_ntt as rn
-
-    mesh = sh.make_mesh({"ring": 8})
-    q = QS[1]
-    n = 512  # 8^2 | 512
-    plan = ntt.ntt_plan(n, q)
-    x = rng.integers(0, q, (3, n), dtype=np.uint64).astype(np.uint32)
-    xj = jax.device_put(
-        jnp.asarray(x),
-        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, "ring")),
-    )
-    got = rn.ntt_ring_sharded_pallas(mesh, xj, plan, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), ntt.np_ntt_forward(x, plan))
-
-
-def test_remote_ntt_overlap_matches_unfused(rng):
-    """Overlapped fused a2a+phase-B kernel (VERDICT r2 #10) == the
-    two-call path, bit-exact, and == the numpy oracle.  Batch flattens
-    to 256 (two 128-lane slabs), so the slab loop and up-front DMA
-    issue both execute in interpret mode."""
-    from lol_tpu.ops.pallas import remote_ntt as rn
-
-    mesh = sh.make_mesh({"ring": 4})
-    q = QS[0]
-    plan = ntt.ntt_plan(N, q)
-    x = rng.integers(0, q, (2, 128, N), dtype=np.uint64).astype(np.uint32)
-    xj = jax.device_put(
-        jnp.asarray(x),
-        jax.sharding.NamedSharding(
-            mesh, jax.sharding.PartitionSpec(None, None, "ring")
-        ),
-    )
-    got = rn.ntt_ring_sharded_pallas(mesh, xj, plan, interpret=True,
-                                     overlap=True)
-    want = rn.ntt_ring_sharded_pallas(mesh, xj, plan, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    np.testing.assert_array_equal(
-        np.asarray(got), ntt.np_ntt_forward(x.reshape(-1, N), plan).reshape(x.shape)
-    )
-    # inverse (send-side) overlap: round-trips the forward bit-exactly
-    back = rn.intt_ring_sharded_pallas(mesh, got, plan, interpret=True,
-                                       overlap=True)
-    np.testing.assert_array_equal(np.asarray(back), x)
-
-    # 3 slabs > kslot=2: the capped landing zone actually RECYCLES a
-    # slot through the reverse-ack protocol (VERDICT r3 #10) — the
-    # prologue fills both slots, slab 2 reuses slot 0 after the ack
-    # round, and the drain waits the final acks.  The inverse (back3)
-    # likewise exceeds its 2-slab sliding send window, so slab 0's
-    # copies drain MID-LOOP before slab 2 issues (VERDICT r4 next #9:
-    # bounded send depth)
-    x3 = rng.integers(0, q, (3, 128, N), dtype=np.uint64).astype(np.uint32)
-    xj3 = jax.device_put(
-        jnp.asarray(x3),
-        jax.sharding.NamedSharding(
-            mesh, jax.sharding.PartitionSpec(None, None, "ring")
-        ),
-    )
-    got3 = rn.ntt_ring_sharded_pallas(mesh, xj3, plan, interpret=True,
-                                      overlap=True)
-    np.testing.assert_array_equal(
-        np.asarray(got3),
-        ntt.np_ntt_forward(x3.reshape(-1, N), plan).reshape(x3.shape),
-    )
-    back3 = rn.intt_ring_sharded_pallas(mesh, got3, plan, interpret=True,
-                                        overlap=True)
-    np.testing.assert_array_equal(np.asarray(back3), x3)
-
-
 def test_sharded_bgv_step_32k(rng):
     """Config 5's sharded demo: m=32768 batched step + fused tunnel with
     (rns=2, data=4) sharding, mesh-aware digit all-gather (no involuntary
@@ -167,7 +81,7 @@ def test_sharded_bgv_step_32k(rng):
     params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(60))
     hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), jax.random.PRNGKey(61))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     enc = bb.build_encrypt(sk)
     n = params.ctx.n
     m1 = rng.integers(0, params.p, (n, B)).astype(np.int32)
@@ -198,7 +112,7 @@ def test_sharded_bgv_step_32k(rng):
     ys[0] = Cyc.scalar(S, 1)
     th = she.tunnel_hint(lin.linear_pow(E, R, S, ys), sk_s, sk2, gd.RnsGad(),
                          jax.random.PRNGKey(65))
-    bb2 = BatchedBGV(params2, use_pallas=False)
+    bb2 = BatchedBGV(params2)
     data_spec = NamedSharding(mesh, P(None, None, "data"))
     e0d, e1d = (jax.device_put(np.asarray(x), data_spec) for x in (e0, e1))
     t0s, t1s = bb2.build_tunnel(th, mesh=mesh)(e0d, e1d)
@@ -206,29 +120,6 @@ def test_sharded_bgv_step_32k(rng):
                                   jnp.asarray(np.asarray(e1)))
     np.testing.assert_array_equal(np.asarray(t0s), np.asarray(t0))
     np.testing.assert_array_equal(np.asarray(t1s), np.asarray(t1))
-
-
-def test_remote_ntt_pallas_inverse_roundtrip(rng):
-    """Inverse ring-sharded transform: fwd -> inv == id, and inv matches
-    the numpy oracle (VERDICT r1 #9)."""
-    from lol_tpu.ops.pallas import remote_ntt as rn
-
-    mesh = sh.make_mesh({"ring": 4})
-    q = QS[0]
-    plan = ntt.ntt_plan(N, q)
-    x = rng.integers(0, q, (2, N), dtype=np.uint64).astype(np.uint32)
-    spec = jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, "ring")
-    )
-    xj = jax.device_put(jnp.asarray(x), spec)
-    fwd = rn.ntt_ring_sharded_pallas(mesh, xj, plan, interpret=True)
-    back = rn.intt_ring_sharded_pallas(
-        mesh, jax.device_put(fwd, spec), plan, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(back), x)
-    # inverse alone vs oracle
-    got = rn.intt_ring_sharded_pallas(mesh, xj, plan, interpret=True)
-    np.testing.assert_array_equal(got, ntt.np_ntt_inverse(x, plan))
 
 
 def test_sharded_galois_many_and_ks_linear_ext(rng):
@@ -246,7 +137,7 @@ def test_sharded_galois_many_and_ks_linear_ext(rng):
     qs = all_qs[:nrns]
     params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(90))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     n = params.ctx.n
     msgs = rng.integers(0, params.p, (n, B)).astype(np.int32)
     c0, c1 = bb.build_encrypt(sk)(jnp.asarray(msgs), jax.random.PRNGKey(91))

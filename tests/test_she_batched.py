@@ -153,7 +153,7 @@ def test_batched_galois_hoisted(rng):
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=5, qs=qs, var=2.0)
     skg = she.gen_sk(params, jax.random.PRNGKey(260))
-    bbg = BatchedBGV(params, use_pallas=False)
+    bbg = BatchedBGV(params)
     kg = 5  # unit mod 36
     hg = {kg: she.ks_galois_hint(kg, skg, gd.RnsGad(),
                                  jax.random.PRNGKey(261))}
@@ -216,7 +216,7 @@ def test_config5_scale_smoke(rng):
     params = she.SHEParams(m=m, p=257, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(50))
     hint = she.ks_quad_circ_hint(sk, gd.RnsGad(), jax.random.PRNGKey(51))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     enc = bb.build_encrypt(sk)
     n = params.ctx.n
     m1 = rng.integers(0, params.p, (n, B)).astype(np.int32)
@@ -225,7 +225,7 @@ def test_config5_scale_smoke(rng):
     d0, d1 = enc(jnp.asarray(m2), jax.random.PRNGKey(53))
     e0, e1 = bb.build_step(hint)(c0, c1, d0, d1)
     params2 = she.SHEParams(m=m, p=params.p, qs=qs[:-1], var=params.var)
-    bb2 = BatchedBGV(params2, use_pallas=False)
+    bb2 = BatchedBGV(params2)
     sk2 = she.SK(params2, sk.s_ints, sk.var)
     f2 = nt.modinv(qs[-1] % params.p, params.p)
     got = np.asarray(bb2.build_decrypt(sk2, f=f2)(e0, e1))[:, 0]
@@ -713,7 +713,7 @@ def test_batched_general_m_pipeline(rng):
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=5, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(0))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     enc = bb.build_encrypt(sk)
     n = params.ctx.n
     B = 4
@@ -726,7 +726,7 @@ def test_batched_general_m_pipeline(rng):
     d0, d1 = enc(jnp.asarray(m2), jax.random.PRNGKey(3))
     e0, e1 = bb.build_step(hint)(c0, c1, d0, d1)
     params2 = she.SHEParams(m=m, p=params.p, qs=qs[:-1], var=params.var)
-    bb2 = BatchedBGV(params2, use_pallas=False)
+    bb2 = BatchedBGV(params2)
     sk2 = she.SK(params2, sk.s_ints, sk.var)
     f2 = nt.modinv(qs[-1] % params.p, params.p)
     got = np.asarray(bb2.build_decrypt(sk2, f=f2)(e0, e1))
@@ -788,7 +788,7 @@ def test_batched_general_m_off_233_lattice(rng):
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=7, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(200))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     enc = bb.build_encrypt(sk)
     n, B = params.ctx.n, 3
     m1 = rng.integers(0, params.p, (n, B)).astype(np.int32)
@@ -799,7 +799,7 @@ def test_batched_general_m_off_233_lattice(rng):
     d0, d1 = enc(jnp.asarray(m2), jax.random.PRNGKey(203))
     e0, e1 = bb.build_step(hint)(c0, c1, d0, d1)
     params2 = she.SHEParams(m=m, p=7, qs=qs[:-1], var=2.0)
-    bb2 = BatchedBGV(params2, use_pallas=False)
+    bb2 = BatchedBGV(params2)
     sk2 = she.SK(params2, sk.s_ints, sk.var)
     f2 = nt.modinv(qs[-1] % 7, 7)
     got = np.asarray(bb2.build_decrypt(sk2, f=f2)(e0, e1))
@@ -829,7 +829,7 @@ def test_batched_general_m_msd(rng):
     qs = tuple(nt.ntt_primes(m, 30, 3))
     params = she.SHEParams(m=m, p=5, qs=qs, var=2.0)
     sk = she.gen_sk(params, jax.random.PRNGKey(0))
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     hint = bb.gen_ks_quad_hint(sk, jax.random.PRNGKey(1))
     n, B = params.ctx.n, 3
     m1 = rng.integers(0, params.p, (n, B)).astype(np.int32)
@@ -843,7 +843,7 @@ def test_batched_general_m_msd(rng):
     )
     e0, e1 = bb.build_step(hint, encoding="msd")(c0, c1, d0, d1)
     params2 = she.SHEParams(m=m, p=params.p, qs=qs[:-1], var=params.var)
-    bb2 = BatchedBGV(params2, use_pallas=False)
+    bb2 = BatchedBGV(params2)
     sk2 = she.SK(params2, sk.s_ints, sk.var)
     f2 = bb.step_f(1, 1, encoding="msd")
     got = np.asarray(bb2.build_decrypt(sk2, f=f2, encoding="msd")(e0, e1))
@@ -875,7 +875,7 @@ def test_batched_galois_general_m(rng):
     hint = she.ks_galois_hint(k, sk, gd.RnsGad(), jax.random.PRNGKey(131))
     cts = [she.encrypt(sk, she.pt_random(params, rng),
                        jax.random.PRNGKey(132 + b)) for b in range(2)]
-    bb = BatchedBGV(params, use_pallas=False)
+    bb = BatchedBGV(params)
     c0, c1 = bb.pack(cts)
     e0, e1 = bb.build_galois(hint, k)(c0, c1)
     outs = bb.unpack((e0, e1))
